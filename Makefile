@@ -1,8 +1,12 @@
 # Convenience targets (see README / CLAUDE.md for details)
-.PHONY: test bench verify native clean
+.PHONY: test smoke bench verify native clean
 
 test:
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q -m 'not slow'
+
+# on a GPU
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py

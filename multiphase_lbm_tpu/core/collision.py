@@ -1,9 +1,8 @@
 """Equilibria and collision operators (BGK, MRT).
 
-MRT relaxation is expressed as two 9×9 matmuls over the flattened lattice
-(``(9, nelem)``) — the moment transform rides the MXU instead of the
-reference's per-cell hand-unrolled CONVERT/RECONVERT
-(``PulsatileBloodFlow2D.h:509-531``).
+MRT relaxation is one precomputed 9×9 product ``M⁻¹·diag(S)·M`` applied
+over the flattened lattice (``(9, nelem)``) instead of the reference's
+per-cell hand-unrolled CONVERT/RECONVERT (``PulsatileBloodFlow2D.h:509-531``).
 """
 from __future__ import annotations
 
@@ -103,13 +102,13 @@ MRT_M_K_INV = np.linalg.inv(MRT_M_K)
 def mrt_collide(f, feq, S, M=MRT_M_I, Minv=MRT_M_I_INV):
     """Moment-space relaxation: ``f' = f − M⁻¹ · diag(S) · M · (f − f^eq)``.
 
-    Reference ``PulsatileBloodFlow2D.h:533-541``.  Shapes: ``f, feq``
-    ``(Q, spatial...)``; ``S`` length-Q relaxation diagonal.
+    Reference ``PulsatileBloodFlow2D.h:533-541`` (and the combustion
+    module's collideMRT with its own ``M``).  Shapes: ``f, feq``
+    ``(Q, spatial...)``; ``S`` length-Q relaxation diagonal.  The product
+    runs at HIGHEST precision (``core/precision.py``).
     """
     q = f.shape[0]
-    dtype = f.dtype
     A = (np.asarray(Minv) @ np.diag(np.asarray(S, dtype=np.float64)) @ np.asarray(M))
-    A = jnp.asarray(A, dtype=dtype)
+    A = jnp.asarray(A, dtype=f.dtype)
     dneq = (f - feq).reshape(q, -1)
-    dpost = (A @ dneq).reshape(f.shape)
-    return f - dpost
+    return f - einsum("kj,jn->kn", A, dneq).reshape(f.shape)

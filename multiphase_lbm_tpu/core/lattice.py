@@ -1,10 +1,10 @@
 """Lattice descriptors (velocity sets, weights, opposite maps).
 
-TPU-native design note: descriptors are small host-side numpy constants that get
-baked into jitted programs as literals.  Populations are stored as dense arrays
-``f[Q, ny, nx]`` (2D) / ``f[Q, nz, ny, nx]`` (3D) with the x axis last (mapped
-to TPU lanes), and every per-direction operation is expressed as a vectorised
-roll/select over the whole lattice rather than a per-cell loop.
+Design note: descriptors are small host-side numpy constants that get baked
+into jitted programs as literals.  Populations are stored as dense arrays
+``f[Q, ny, nx]`` (2D) / ``f[Q, nz, ny, nx]`` (3D) with the x axis last (the
+contiguous axis), and every per-direction operation is expressed as a
+vectorised roll/select over the whole lattice rather than a per-cell loop.
 
 Orderings reproduced from the reference for output/validation parity:
 

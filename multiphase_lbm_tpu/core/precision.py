@@ -1,19 +1,20 @@
 """Float32-exact einsum for population/moment contractions.
 
-On TPU, XLA lowers ``jnp.einsum`` contractions (the k=9/19 population
-sums against the lattice ``c`` matrix, and the 9×9 MRT moment
-transforms) onto the MXU at DEFAULT matmul precision — bf16 inputs —
-silently costing ~8 mantissa bits.  Measured on a v5e (SC-RT, N=128,
-f32): ``cu = einsum("kd,d...->k...", c, u)`` differs from the exact
-per-k accumulation by 2.5e-3 *relative*, which compounds to O(1) field
-divergence within a few hundred steps of an unstable flow.  The Pallas
-kernels accumulate per-k in f32 and are exact; the XLA model paths are
-the reference oracles, so they must be at least as accurate.
+On an NVIDIA H100, XLA may run a float32 contraction on the tensor cores
+in TF32 (10 stored mantissa bits, about three decimal digits) unless the
+call asks for more.  The k=9/19 population sums against the lattice ``c``
+matrix (``cu = einsum("kd,d...->k...", c, u)``) and the 9×9 MRT moment
+products (``core.collision.mrt_collide``) would then carry a relative
+error near 1e-3 into every step, which compounds to O(1) field divergence
+within a few hundred steps of an unstable flow (Rayleigh–Taylor) and
+breaks the C++ capture gates, which hold the reference's float-print
+precision.
 
-``einsum`` here pins ``precision=HIGHEST`` (f32-equivalent multi-pass on
-the MXU).  Cost: ~20% on the XLA model paths at 512² — acceptable for
-oracle paths; the fused kernels are the production-performance paths.
-No effect on CPU or f64, so CI and golden-parity tests are unchanged.
+``einsum`` here pins ``precision=HIGHEST``: true float32 (or float64)
+arithmetic on every backend.  Every contraction in ``core/`` and
+``models/`` goes through it; ``tests/test_family_invariants.py`` checks
+that each family's step jaxpr holds no ``dot_general`` at a lower
+precision.  On the CPU and in float64 the pin changes nothing.
 """
 from functools import partial
 

@@ -2,7 +2,7 @@
 
 The reference implements streaming as scatter ("push") writes with on-site
 bounce-back (e.g. ``laplace2D.h:260-270``, ``rayleighTaylor2D.h:532-549``) or a
-serial pull loop (``PulsatileBloodFlow2D.h:603-616``).  On TPU both become a
+serial pull loop (``PulsatileBloodFlow2D.h:603-616``).  Here both become a
 vectorised *pull* (gather): the population arriving at cell ``r`` in direction
 ``k`` is read from the upstream cell ``r - c_k`` via ``jnp.roll``.  This is
 race-free by construction and fuses into one XLA kernel.

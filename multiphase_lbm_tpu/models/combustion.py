@@ -1,6 +1,6 @@
 """Reactive multicomponent MRT combustion solver (D2Q9, rest-first ordering).
 
-TPU-native re-design of reference ``CooLBM_MRT_combustion.cpp`` in its
+JAX re-design of reference ``CooLBM_MRT_combustion.cpp`` in its
 default configuration (the Xu-2018 regeneration test driven by ``main``):
 four coupled populations — flow f, species g_O2/g_CO2 (mass fractions),
 temperature g_T — on an inflow/outflow channel with four reactive obstacles.
@@ -43,6 +43,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.collision import mrt_collide
 from ..core.lattice import D2Q9_REST_FIRST
 from ..core.precision import einsum
 
@@ -335,9 +336,7 @@ def build_static_tables(flags, p: CombustionParams):
 # ─── collision pieces ──────────────────────────────────────────────────────
 def _mrt(pop, eq, S):
     """pop − M⁻¹ diag(S) M (pop − eq), vectorised over the lattice."""
-    A = jnp.asarray(M_INV @ np.diag(S) @ M_MAT, dtype=pop.dtype)
-    dneq = (pop - eq).reshape(Q, -1)
-    return pop - (A @ dneq).reshape(pop.shape)
+    return mrt_collide(pop, eq, S, M=M_MAT, Minv=M_INV)
 
 
 def _equilibrium(amp, u, usqr):
@@ -436,7 +435,7 @@ def apply_scalar_bcs(g, amp_inlet, p: CombustionParams, species=False,
     # inlet row fixes): the reference's outlet reads columns nx−2/nx−3,
     # whose row-fixed cells are excluded from the outlet mask — do not
     # "fix" this to use the post-fix macro (gated by the 500-step C++
-    # parity test and mirrored in ops/pallas_combustion.py).
+    # parity test).
     amp_out = (4.0 * m[:, nx - 2] - m[:, nx - 3]) / 3.0
     colo = g[:, :, nx - 1]
     mo_fix = (m[:, nx - 1]

@@ -1,6 +1,6 @@
 """Conservative phase-field LBM (Fakhari et al. 2017), velocity-based hydro.
 
-TPU-native re-design of reference ``Abbashub LBM/apps/Young_Laplace2D.h``:
+JAX re-design of reference ``Abbashub LBM/apps/Young_Laplace2D.h``:
 two D2Q9 distributions — h̄ (phase field φ) and ḡ (normalised pressure p*) —
 with BGK collision, interface sharpening force F^φ, and total hydrodynamic
 force F = μ_φ∇φ + F_p + F_μ.

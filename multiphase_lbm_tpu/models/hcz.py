@@ -1,12 +1,12 @@
 """HCZ-style phase-field LBM with Carnahan–Starling EOS (2D D2Q9, 3D D3Q19).
 
-TPU-native re-design of the reference modules
+JAX re-design of the reference modules
 ``Phase field model/apps/rayleighTaylor2D.h`` (Rayleigh–Taylor instability),
 ``twoLayeredFlow2D.h`` (body-force-driven layered channel) and
 ``laplace3D.h`` (D3Q19 droplet).  Two distributions: f carries the order
 parameter φ, g the pressure.
 
-Key TPU restructuring (SURVEY §3.3): the reference recomputes neighbor
+Key restructuring (SURVEY §3.3): the reference recomputes neighbor
 Laplacians *inside* the gradient-of-Laplacian for every cell (an effective
 5×5 recompute explosion; the 3D module even recurses through
 ``total_P → velocity → grad_lap_phi`` per neighbor).  Here every stencil
@@ -298,16 +298,11 @@ def apply_geometry(state, fluid):
 
 
 # ─── diagnostics ───────────────────────────────────────────────────────────
-def interface_heights(phi_host: np.ndarray, p: HCZParams, ny_fluid=None):
+def interface_heights(phi_host: np.ndarray, p: HCZParams):
     """Spike/bubble y positions (reference findInterfaceHeights, :668-708):
     topmost y (scanning down from ny−2) where φ ≤ φ_mid, at x=0 (named
-    'bubble' in the reference) and x=nx/2 ('spike').  ``ny_fluid`` bounds
-    the scan when the lattice carries extra padded solid rows (fused-path
-    8-multiple padding): pad rows hold φ = 0 ≤ φ_mid and would otherwise
-    swamp the scan."""
+    'bubble' in the reference) and x=nx/2 ('spike')."""
     ny, nx = phi_host.shape
-    if ny_fluid is not None:
-        ny = ny_fluid
     phi_mid = 0.5 * (p.phi_l + p.phi_g)
 
     def scan_col(x):

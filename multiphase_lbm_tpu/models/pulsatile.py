@@ -1,6 +1,6 @@
 """Pulsatile blood flow in a deformable 2D vessel (D2Q9 MRT, pressure form).
 
-TPU-native re-design of reference ``Abbashub LBM/apps/PulsatileBloodFlow2D.h``:
+JAX re-design of reference ``Abbashub LBM/apps/PulsatileBloodFlow2D.h``:
 incompressible pressure-form equilibrium, MRT (or BGK) collision, Zou/He
 pulsatile pressure inlet/outlet, Bouzidi quadratic curved bounce-back on two
 moving walls, and a pressure-driven deformable vessel with per-step geometry
@@ -888,9 +888,7 @@ def step(state: PulsatileState, t, p: PulsatileParams):
 def finish_step(state: PulsatileState, gout, g, P, Ux, Uy,
                 p: PulsatileParams):
     """Geometry tail of the step (wall ODE → Fobj → reseeding → macro
-    fixups); the whole-step fused kernel
-    (:mod:`..ops.pallas_pulsatile_full`) reimplements this phase
-    in-kernel and is pinned to it by its equivalence tests."""
+    fixups)."""
     if p.deformable:
         yr1, yr2 = move_walls(P, state.yr1, state.yr2, p)
         F_new = fobj_from_walls(yr1, yr2, p)

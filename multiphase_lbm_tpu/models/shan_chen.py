@@ -1,6 +1,6 @@
 """Single-component Shan–Chen pseudopotential solver (D2Q9).
 
-TPU-native re-design of the reference modules
+JAX re-design of the reference modules
 ``shan-chen single component model/apps/laplace2D.h`` (Yuan–CS EOS, periodic
 Laplace droplet), ``contactAngle2D.h`` (wetting walls, droplet on wall) and
 ``twoLayeredFlow2D.h`` (p_shift-regularised layered Poiseuille).  The

@@ -1,6 +1,6 @@
 """Shan–Chen Rayleigh–Taylor variant (ψ = 1 − e^(−ρ), Guo forcing).
 
-TPU-native re-design of reference
+JAX re-design of reference
 ``shan-chen single component model/apps/RayleighTaylor2D.h``: exponential
 pseudopotential, cos-perturbed tanh density interface, gravity, and
 Guo-style forcing applied *inside* the collision (unlike the velocity-shift

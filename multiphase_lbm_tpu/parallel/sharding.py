@@ -1,31 +1,24 @@
-"""Multi-chip lattice decomposition (pjit / shard_map over a device Mesh).
+"""Multi-device lattice decomposition (jit / shard_map over a device Mesh).
 
 The reference has no distributed layer (single-process parallel STL,
-SURVEY §2.5); the TPU-native scaling obligation is domain decomposition of
-the lattice across chips with per-step halo exchange over ICI.
+SURVEY §2.5); here the lattice is cut over a device mesh whose axes are
+named after the lattice axes they cut: mesh axis 'x' cuts the last
+(x) axis, 'y' the one before it.
 
-Two interchangeable paths:
+Two paths:
 
-* **auto**: jit the unmodified global step with ``NamedSharding`` inputs and
-  let XLA GSPMD turn the streaming rolls into collective-permutes.  Zero
-  code change, good baseline.
-* **halo**: ``shard_map`` wrapper that exchanges a ``width``-cell halo with
-  ring ``lax.ppermute`` (ICI neighbors), runs the *unmodified* local step on
-  the halo-extended block, and crops.  Correct for any step whose total
-  stencil reach ≤ ``width`` (SC: force 1 + stream 1 = 2; HCZ: ∇∇² needs 2 +
-  stream 1 = 3).  Periodic global topology falls out of the permute ring.
-
-Fused meshes: 1D cuts for every family (y for SC/HCZ/Fakhari/combustion,
-z for HCZ-3D, x-ring for SC-RT) plus 2D (y×x) cuts for the two families
-whose headline lattices can outgrow an 8-chip 1D stripe
-(``make_fused_sc_step_2d`` / ``make_fused_hcz_step_2d``, SURVEY §5.7).
-
-Family coverage: every model family has a ``make_fused_*_step`` halo path
-EXCEPT pulsatile — a deliberate exclusion (PARITY.md §5 "Pulsatile
-multi-chip"): the reference pins that domain at 621×64 and never scales
-it, the whole-step kernel is VMEM-resident at ~40 µs/step, and its
-geometry engine couples the full x range each step; the XLA oracle still
-runs under the auto path if a scaled variant ever appears.
+* **auto** (:func:`shard_state`): jit the unmodified global step with
+  ``NamedSharding`` inputs and let XLA GSPMD turn the streaming rolls into
+  collective-permutes.  Works for every family, including steps that are
+  not translation invariant (combustion's inlet/outlet columns, the
+  pulsatile vessel's wall geometry) and D3Q19 volumes.
+* **halo** (:func:`make_halo_step`): ``shard_map`` wrapper that exchanges a
+  ``width``-cell halo with ring ``lax.ppermute``, runs the *unmodified*
+  local step on the halo-extended block, and crops.  Correct for any
+  translation-invariant 2D step whose total stencil reach ≤ ``width``
+  (SC: force 1 + stream 1 = 2; HCZ: ∇∇² needs 2 + stream 1 = 3).
+  Periodic global topology falls out of the permute ring.  It exchanges
+  once per step.
 """
 from __future__ import annotations
 
@@ -49,14 +42,19 @@ def make_mesh(n_devices: int | None = None, shape=None, axis_names=("x",)):
     return Mesh(devs.reshape(shape), axis_names)
 
 
+# mesh axis name -> the lattice axis it cuts (spatial axes are last)
+_AXES = (("x", -1), ("y", -2))
+
+
 def lattice_pspec(mesh: Mesh, ndim_spatial: int = 2, leading: int = 1):
-    """PartitionSpec sharding the x axis (last) along mesh axis 'x' and, if the
-    mesh has a 'y' axis, the y axis along it.  ``leading`` counts leading
-    population/component axes that stay replicated."""
+    """PartitionSpec sharding the x axis (last) along mesh axis 'x' and the
+    y axis along mesh axis 'y', for whichever of the two the mesh has.
+    ``leading`` counts leading population/component axes that stay
+    replicated."""
     spec = [None] * (leading + ndim_spatial)
-    spec[-1] = "x"
-    if "y" in mesh.axis_names:
-        spec[-2] = "y"
+    for name, ax in _AXES:
+        if name in mesh.axis_names:
+            spec[ax] = name
     return P(*spec)
 
 
@@ -64,6 +62,23 @@ def shard_lattice(arr, mesh: Mesh, leading: int = 1):
     """Place a global array with the standard lattice sharding."""
     ndim_spatial = arr.ndim - leading
     return jax.device_put(arr, NamedSharding(mesh, lattice_pspec(mesh, ndim_spatial, leading)))
+
+
+def shard_state(state, mesh: Mesh):
+    """Place every array of a model state (any pytree) for the auto path:
+    the two trailing axes of each array of rank ≥ 2 are cut along mesh
+    axes 'x'/'y' where the mesh axis divides them; everything else (wall
+    position vectors, halo-padded geometry fields of odd size, scalars)
+    is replicated.  The unmodified jitted step then runs under GSPMD."""
+    def place(a):
+        spec = [None] * a.ndim
+        if a.ndim >= 2:
+            for name, ax in _AXES:
+                if (name in mesh.axis_names
+                        and a.shape[ax] % mesh.shape[name] == 0):
+                    spec[ax] = name
+        return jax.device_put(a, NamedSharding(mesh, P(*spec)))
+    return jax.tree_util.tree_map(place, state)
 
 
 # ─── halo exchange ─────────────────────────────────────────────────────────
@@ -110,7 +125,7 @@ def make_halo_step(step_fn: Callable, mesh: Mesh, width: int,
 
     Returns a jitted function with the same signature as ``step_fn``.
     """
-    axes = [("x", -1)] + ([("y", -2)] if "y" in mesh.axis_names else [])
+    axes = [(name, ax) for name, ax in _AXES if name in mesh.axis_names]
 
     def local_step(*args):
         ext = []
@@ -136,267 +151,5 @@ def make_halo_step(step_fn: Callable, mesh: Mesh, width: int,
     shard_fn = jax.shard_map(
         local_step, mesh=mesh, in_specs=specs,
         out_specs=out_specs_state[0] if n_state == 1 else out_specs_state,
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def _halo_width(reach: int, nsub: int) -> int:
-    """Exchange width: ``reach·nsub`` rows rounded up to the Mosaic 8-row
-    alignment — the multi-chip paths exchange exactly what the kernel's
-    temporal blocking consumes instead of being pinned at 8 rows."""
-    return ((reach * nsub + 7) // 8) * 8
-
-
-def make_fused_sc_step(mesh: Mesh, p, tile: int = 0, interpret: bool = False,
-                       nsub: int = 1):
-    """Multi-chip fused Shan-Chen step: y-sharded lattice, ring-ppermute
-    halo exchange over ICI, then the halo-mode Pallas kernel on each shard
-    (reads its halos from the pre-exchanged rows — no wrap logic).
-
-    The mesh must have a single axis 'y'; the GLOBAL lattice is
-    ``(9, ny, nx)`` sharded on axis 1.  Global y-periodicity rides the
-    permute ring.  ``nsub > 1`` advances several LBM steps per halo
-    exchange (the exchange width grows to ``⌈2·nsub/8⌉·8`` rows, matching
-    the single-chip kernel's temporal blocking); the returned function then
-    advances ``nsub`` steps per call.
-    """
-    from ..ops import pallas_sc
-
-    H = max(pallas_sc.HALO, _halo_width(2, nsub))
-
-    def local_step(f_loc, m_loc):
-        f_ext = _exchange_axis(f_loc, H, 1, "y")
-        m_ext = _exchange_axis(m_loc, H, 0, "y")
-        return pallas_sc.step_fused_halo(f_ext, m_ext, p, tile=tile,
-                                         interpret=interpret, nsub=nsub,
-                                         halo=H)
-
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(P(None, "y", None), P("y", None)),
-        out_specs=P(None, "y", None),
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def make_fused_hcz_step(mesh: Mesh, p, tile: int = 0, interpret: bool = False,
-                        nsub: int = 1):
-    """Multi-chip fused HCZ step (y-sharded; ring halo exchange + halo-mode
-    Pallas kernel per shard).  Scales the RTI workloads beyond one chip's
-    HBM.  ``nsub > 1`` advances several steps per halo exchange; the
-    exchange width is ``⌈3·nsub/8⌉·8`` rows, so e.g. nsub=5 (the single-chip
-    RTI-2048 production setting) exchanges 16 rows per 5 steps."""
-    from ..ops import pallas_hcz
-
-    H = max(pallas_hcz.HALO, _halo_width(3, nsub))
-
-    def local_step(f_loc, g_loc, m_loc):
-        f_ext = _exchange_axis(f_loc, H, 1, "y")
-        g_ext = _exchange_axis(g_loc, H, 1, "y")
-        m_ext = _exchange_axis(m_loc, H, 0, "y")
-        return pallas_hcz.step_fused_halo(f_ext, g_ext, m_ext, p, tile=tile,
-                                          interpret=interpret, nsub=nsub,
-                                          halo=H)
-
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(P(None, "y", None), P(None, "y", None), P("y", None)),
-        out_specs=(P(None, "y", None), P(None, "y", None)),
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def make_fused_hcz3d_step(mesh: Mesh, p, tile: int = 0,
-                          interpret: bool = False, nsub: int = 1):
-    """Multi-chip fused 3D HCZ (D3Q19) step: the ``(Q, nz, ny, nx)`` volume
-    is sharded on z along mesh axis 'z'; ring ppermute exchanges the
-    ``3·nsub``-slab z-halo (z slices carry no Mosaic alignment constraint,
-    so the exchange width is exactly the physical reach), then the halo-mode
-    stripe kernel advances ``nsub`` steps per call on each shard."""
-    from ..ops import pallas_hcz3d
-
-    H = pallas_hcz3d.HALO * nsub
-
-    def local_step(f_loc, g_loc):
-        f_ext = _exchange_axis(f_loc, H, 1, "z")
-        g_ext = _exchange_axis(g_loc, H, 1, "z")
-        return pallas_hcz3d.step_fused_halo_3d(f_ext, g_ext, p, tile=tile,
-                                               interpret=interpret,
-                                               nsub=nsub)
-
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(P(None, "z", None, None), P(None, "z", None, None)),
-        out_specs=(P(None, "z", None, None), P(None, "z", None, None)),
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def make_fused_combustion_step(mesh: Mesh, p, konv: bool = True,
-                               tile: int = 0, interpret: bool = False,
-                               nsub: int = 1, halo: int = 8):
-    """Multi-chip fused reactive-combustion step (y-sharded lattice over
-    mesh axis 'y'; ring halo exchange of the 8 state arrays + static
-    masks, then the halo-mode striped kernel per shard).  Extends the
-    scale axis (SURVEY §5.8) to the largest reference component
-    (CooLBM_MRT_combustion.cpp:3018-3126).
-
-    The combustion domain is y-walled, not periodic: the ring exchange
-    still wraps the two domain-edge halos, but those rows carry global
-    row indices outside ``[0, ny)`` in the kernel's global-row BC masks
-    and every stencil branch that could read them is select-masked (the
-    same argument that lets the single-chip kernel zero-fill them).
-    Each shard applies inlet/outlet column BCs on its own rows; the
-    wall-row fixes fire only on the shards holding global rows 1 and
-    ny−2.  Returns a jitted function ``(args8, m9, m2) -> args8`` that
-    advances ``nsub`` steps per call (one halo exchange each,
-    ``halo ≥ 4·nsub``)."""
-    from ..ops import pallas_combustion as pcmb
-
-    H = max(halo, _halo_width(pcmb.STRIPE_REACH, nsub))
-
-    def local_step(args8, m9_loc, m2_loc):
-        ext = tuple(_exchange_axis(a, H, 1, "y") for a in args8)
-        m9_ext = _exchange_axis(m9_loc, H, 2, "y")
-        m2_ext = _exchange_axis(m2_loc, H, 1, "y")
-        ny_l = args8[0].shape[1]
-        row0 = lax.axis_index("y") * ny_l - H
-        return pcmb.step_fused_halo(ext, m9_ext, m2_ext, row0, p,
-                                    konv=konv, nsub=nsub, tile=tile,
-                                    halo=H, interpret=interpret)
-
-    spec_state = tuple(P(None, "y", None) for _ in range(8))
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(spec_state, P(None, None, "y", None), P(None, "y", None)),
-        out_specs=spec_state,
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def make_fused_fakhari_step(mesh: Mesh, p, tile: int = 0,
-                            interpret: bool = False, nsub: int = 1):
-    """Multi-chip fused Fakhari step (y-sharded; ring halo exchange of
-    (h, g, u) + the merged halo-mode kernel per shard).  One substep
-    consumes 5 rows of halo validity, so the exchange width is
-    ``⌈5·nsub/8⌉·8`` rows per ``nsub`` steps."""
-    from ..ops import pallas_fakhari
-
-    H = max(pallas_fakhari.HALO, _halo_width(pallas_fakhari.REACH, nsub))
-
-    def local_step(h_loc, g_loc, u_loc):
-        h_ext = _exchange_axis(h_loc, H, 1, "y")
-        g_ext = _exchange_axis(g_loc, H, 1, "y")
-        u_ext = _exchange_axis(u_loc, H, 1, "y")
-        return pallas_fakhari.step_fused_halo(
-            h_ext, g_ext, u_ext, p, tile=tile, interpret=interpret,
-            nsub=nsub, halo=H)
-
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(P(None, "y", None), P(None, "y", None), P(None, "y", None)),
-        out_specs=(P(None, "y", None), P(None, "y", None), P(None, "y", None)),
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def make_fused_sc_step_2d(mesh: Mesh, p, tile: int = 0,
-                          interpret: bool = False, nsub: int = 1,
-                          halo_x: int = 128):
-    """Multi-chip fused Shan-Chen step on a 2D (y×x) device mesh.
-
-    Extends :func:`make_fused_sc_step` past the ~8-chip practical limit of
-    a 1D cut (SURVEY §5.7's 2048²-8192² scale obligation): the global
-    ``(9, ny, nx)`` lattice is sharded on BOTH spatial axes.  Each step
-    exchanges the x halo first (ring ppermute over mesh axis 'x'), then the
-    y halo on the x-extended block (over mesh axis 'y') — the second
-    exchange carries the first's halo columns, so corner cells arrive from
-    the diagonal neighbor in two ICI hops, exactly like the generic
-    :func:`make_halo_step` 2D path.  The unmodified halo-mode kernel then
-    runs per shard: its lane rolls wrap at the *extended* x edges, which
-    only contaminates cells within ``2·nsub ≤ halo_x`` of the edge — all
-    inside the cropped halo (the same argument the 1D paths use for y).
-
-    ``halo_x`` defaults to 128 so the extended lane width stays a multiple
-    of 128 when the per-shard ``nx`` is (Mosaic lane alignment); smaller
-    values are fine in interpret mode.  The x-halo columns are recomputed
-    by every substep and cropped, so the overhead per exchange is
-    ``2·halo_x / nx_local`` extra lanes of compute.
-    """
-    from ..ops import pallas_sc
-
-    Hy = max(pallas_sc.HALO, _halo_width(2, nsub))
-    Hx = halo_x
-    assert Hx >= 2 * nsub, (Hx, nsub)
-
-    def local_step(f_loc, m_loc):
-        f_ext = _exchange_axis(f_loc, Hx, 2, "x")
-        f_ext = _exchange_axis(f_ext, Hy, 1, "y")
-        m_ext = _exchange_axis(m_loc, Hx, 1, "x")
-        m_ext = _exchange_axis(m_ext, Hy, 0, "y")
-        out = pallas_sc.step_fused_halo(f_ext, m_ext, p, tile=tile,
-                                        interpret=interpret, nsub=nsub,
-                                        halo=Hy)
-        return out[:, :, Hx:out.shape[2] - Hx]
-
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(P(None, "y", "x"), P("y", "x")),
-        out_specs=P(None, "y", "x"),
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def make_fused_hcz_step_2d(mesh: Mesh, p, tile: int = 0,
-                           interpret: bool = False, nsub: int = 1,
-                           halo_x: int = 128):
-    """Multi-chip fused HCZ step on a 2D (y×x) device mesh (see
-    :func:`make_fused_sc_step_2d` for the exchange/crop scheme).  One HCZ
-    substep consumes 3 cells of halo validity (∇∇² reach 2 + stream 1), so
-    ``halo_x ≥ 3·nsub``."""
-    from ..ops import pallas_hcz
-
-    Hy = max(pallas_hcz.HALO, _halo_width(3, nsub))
-    Hx = halo_x
-    assert Hx >= 3 * nsub, (Hx, nsub)
-
-    def local_step(f_loc, g_loc, m_loc):
-        f_ext = _exchange_axis(_exchange_axis(f_loc, Hx, 2, "x"), Hy, 1, "y")
-        g_ext = _exchange_axis(_exchange_axis(g_loc, Hx, 2, "x"), Hy, 1, "y")
-        m_ext = _exchange_axis(_exchange_axis(m_loc, Hx, 1, "x"), Hy, 0, "y")
-        f_out, g_out = pallas_hcz.step_fused_halo(
-            f_ext, g_ext, m_ext, p, tile=tile, interpret=interpret,
-            nsub=nsub, halo=Hy)
-        return (f_out[:, :, Hx:f_out.shape[2] - Hx],
-                g_out[:, :, Hx:g_out.shape[2] - Hx])
-
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=(P(None, "y", "x"), P(None, "y", "x"), P("y", "x")),
-        out_specs=(P(None, "y", "x"), P(None, "y", "x")),
-        check_vma=False)
-    return jax.jit(shard_fn)
-
-
-def make_fused_scrt_step(mesh: Mesh, p, ny_phys: int, tile: int = 0,
-                         interpret: bool = False, nsub: int = 1):
-    """Multi-chip fused SC Rayleigh-Taylor step on the TRANSPOSED state
-    ``(9, nx, ny_pad)`` (pallas_scrt layout): the periodic x axis is cut
-    over mesh axis 'x' with a ring halo exchange (global x-periodicity
-    rides the permute ring), the walled lane axis stays whole per shard.
-    One substep consumes 2 columns of halo validity."""
-    from ..ops import pallas_scrt
-
-    H = max(pallas_scrt.HALO, _halo_width(2, nsub))
-
-    def local_step(ft_loc):
-        ft_ext = _exchange_axis(ft_loc, H, 1, "x")
-        return pallas_scrt.step_fused_halo(
-            ft_ext, p, ny_phys, tile=tile, interpret=interpret,
-            nsub=nsub, halo=H)
-
-    shard_fn = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=P(None, "x", None), out_specs=P(None, "x", None),
         check_vma=False)
     return jax.jit(shard_fn)

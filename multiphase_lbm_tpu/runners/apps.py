@@ -9,7 +9,6 @@ emits the same observables: ``sol_*.vtk`` with the module's exact field list,
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,12 +142,9 @@ def _run_sc(p, f, fluid, steps, cfg, outdir, dx, dt, contact):
 
 
 # ─── Fakhari Young-Laplace (reference Young_Laplace2D.h :456-568) ──────────
-def run_young_laplace2d(config, outdir, dtype=jnp.float64, max_steps=None,
-                        fused=False):
+def run_young_laplace2d(config, outdir, dtype=jnp.float64, max_steps=None):
     cfg = load_config(config)
     N = _int(cfg, "N", 128)
-    if fused:
-        dtype = jnp.float32
     p = fk.FakhariParams(
         sigma=_num(cfg, "Sigma", 0.01), W=_num(cfg, "W", 4.0),
         M=_num(cfg, "M", 0.02), rhol=_num(cfg, "RhoL", 0.001),
@@ -176,11 +172,7 @@ def run_young_laplace2d(config, outdir, dtype=jnp.float64, max_steps=None,
             drv.log_file("energy.dat").log(it, e)
             drv.log_file("mass.dat").log(it, m)
         chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        if fused:
-            from ..ops import pallas_fakhari
-            state = pallas_fakhari.run_fused(*state, p, chunk)
-        else:
-            state = fk.run(state, p, chunk)
+        state = fk.run(state, p, chunk)
         drv.clock.tick(chunk)
         it += chunk
     drv.finish()
@@ -188,8 +180,7 @@ def run_young_laplace2d(config, outdir, dtype=jnp.float64, max_steps=None,
 
 
 # ─── HCZ Rayleigh-Taylor (reference PF rayleighTaylor2D.h :862-988) ────────
-def run_rayleigh_taylor_pf(config, outdir, dtype=jnp.float64, max_steps=None,
-                           fused=False):
+def run_rayleigh_taylor_pf(config, outdir, dtype=jnp.float64, max_steps=None):
     cfg = load_config(config)
     N = _int(cfg, "N", 256)
     nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
@@ -200,21 +191,9 @@ def run_rayleigh_taylor_pf(config, outdir, dtype=jnp.float64, max_steps=None,
         rho_g=_num(cfg, "rho_g", 0.04), a=_num(cfg, "a", 4.0),
         b=_num(cfg, "b", 4.0), kappa=_num(cfg, "kappa", 0.01),
         gravity=_num(cfg, "gravity", -6.25e-6))
-    ny0 = 4 * N + 2
-    ny = ny0
-    if fused:
-        # the fused kernel needs 8-multiple row counts; initialize on the
-        # UNPADDED grid (interface at the fluid-channel center, identical
-        # to the XLA run) and pad with solid rows after
-        ny = ny0 + (8 - ny0 % 8) % 8
-        dtype = jnp.float32
-    state = hcz.init_rayleigh_taylor(N, ny0, p, dtype=dtype)
-    if ny != ny0:
-        state = tuple(jnp.pad(a, ((0, 0), (0, ny - ny0), (0, 0)))
-                      for a in state)
+    ny = 4 * N + 2
+    state = hcz.init_rayleigh_taylor(N, ny, p, dtype=dtype)
     fluid = hcz.geometry_channel(N, ny)
-    if ny != ny0:
-        fluid = fluid.at[ny0 - 1:].set(False)   # extend the top wall band
     state = hcz.apply_geometry(state, fluid)
     steps = max_steps or int(_num(cfg, "max_t", 5.01) / dt)
     drv = Driver(outdir, N * ny, out_freq=_int(cfg, "out_freq", 3200),
@@ -232,11 +211,8 @@ def run_rayleigh_taylor_pf(config, outdir, dtype=jnp.float64, max_steps=None,
         if drv.want_out(it):
             e = float(hcz.kinetic_energy(state, fluid, p)) * dx * dx / (dt * dt)
             drv.log_file("energy.dat").log(it * dt, e)
-            # scan only the fluid extent: the padded solid rows have
-            # phi = 0 <= phi_mid and would swamp the interface scan
             s, b = hcz.interface_heights(
-                np.asarray(hcz.order_parameter(state[0])), p,
-                ny_fluid=ny0)
+                np.asarray(hcz.order_parameter(state[0])), p)
             drv.log_file("spike_bubble_position.dat").log(
                 it * dt, s * dx, b * dx)
             # finite-difference interface velocities over the output
@@ -251,16 +227,7 @@ def run_rayleigh_taylor_pf(config, outdir, dtype=jnp.float64, max_steps=None,
                     (b * dx - b_prev) / dti)
             prev_sb = (it * dt, s * dx, b * dx)
         chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        if fused:
-            from ..ops import pallas_hcz
-            # temporal blocking: 5 steps per HBM round-trip (reach 3/step,
-            # 16-row halo); ~1.8x over the single-step kernel on v5e
-            f2, g2 = pallas_hcz.run_fused(state[0], state[1],
-                                          fluid.astype(jnp.float32), p, chunk,
-                                          nsub=5, halo=16)
-            state = (f2, g2)
-        else:
-            state = hcz.run(state, fluid, p, chunk)
+        state = hcz.run(state, fluid, p, chunk)
         drv.clock.tick(chunk)
         it += chunk
     drv.finish()
@@ -344,8 +311,7 @@ def run_laplace3d(config, outdir, dtype=jnp.float64, max_steps=None):
 
 
 # ─── SC Rayleigh-Taylor (reference SC RayleighTaylor2D.h :578-670) ─────────
-def run_rayleigh_taylor_sc(config, outdir, dtype=jnp.float64, max_steps=None,
-                           fused=False):
+def run_rayleigh_taylor_sc(config, outdir, dtype=jnp.float64, max_steps=None):
     cfg = load_config(config)
     N = _int(cfg, "N", 128)
     nu, omega, dx, dt = lb_parameters(_num(cfg, "ulb", 0.04), N,
@@ -354,19 +320,9 @@ def run_rayleigh_taylor_sc(config, outdir, dtype=jnp.float64, max_steps=None,
         omega=omega, rhol=_num(cfg, "rhol", 1.2), rhog=_num(cfg, "rhog", 0.4),
         g=_num(cfg, "g", -5.0), gravity=_num(cfg, "gravity", -1.25e-5))
     nx, ny = N, 4 * N + 2     # reference dim {N, 4N+2} (RayleighTaylor2D.h:622)
-    if fused:
-        dtype = jnp.float32   # the Pallas path is f32 (TPU production dtype)
     f = rt.init_interface(nx, ny, p, dtype=dtype)
     fluid = rt.geometry_channel(nx, ny)
     f = f * fluid[None].astype(f.dtype)
-    if fused:
-        from ..ops import pallas_scrt
-
-        def advance(fa, n):
-            return pallas_scrt.run_fused(fa, p, n)
-    else:
-        def advance(fa, n):
-            return rt.run(fa, fluid, p, n)
     steps = max_steps or int(_num(cfg, "max_t", 50.01) / dt)
     drv = Driver(outdir, nx * ny, out_freq=_int(cfg, "out_freq", 100),
                  vtk_freq=_int(cfg, "vtk_freq", 100))
@@ -387,7 +343,7 @@ def run_rayleigh_taylor_sc(config, outdir, dtype=jnp.float64, max_steps=None,
             drv.log_file("spike_bubble_position.dat").log(
                 it * dt, s * dx, bub * dx)
         chunk = next_chunk(it, steps, drv.out_freq, drv.vtk_freq)
-        f = advance(f, chunk)
+        f = rt.run(f, fluid, p, chunk)
         drv.clock.tick(chunk)
         it += chunk
     drv.finish()
@@ -455,8 +411,7 @@ def run_combustion(outdir, nx=420, ny=80, dtype=jnp.float64,
                    flow_steps=20000, scalar_steps=5000, T_solid=None,
                    conj_scheme="li2014", restart=None, save_flow=True,
                    benchmark=False, bench_ini_iter=1000, bench_max_iter=2000,
-                   topology="inflow_outflow", u_lid=None, dpdx=0.0,
-                   fused=None):
+                   topology="inflow_outflow", u_lid=None, dpdx=0.0):
     """Two-stage combustion driver (reference main :4074-4496).
 
     ``restart`` warm-starts the flow from a reference-format ``ini_f.dat``
@@ -487,60 +442,15 @@ def run_combustion(outdir, nx=420, ny=80, dtype=jnp.float64,
 
     if benchmark:
         import time
+
+        import jax
+
         st = cb.initialize(p, dtype=dtype, T_solid=T_solid, flags=flags)
-        # measured v5e f32 (serial chip, fresh-input timing): fused 505.5
-        # MLUPS flow-only / 452.9 all-four-populations at 420x80 vs XLA
-        # 367.4 / 153.8.  The whole-lattice-in-VMEM kernel OOMs beyond
-        # ~60k cells (840x160 needs 179 MB); there the y-STRIPED fused
-        # kernel takes over (stripes + halo DMA, pallas_combustion
-        # `stripe_tile`), with XLA as the explicit --no-fused fallback.
-        auto = fused is None
-        if auto:
-            fused = True
-        if fused:
-            # the fused kernels cover all four reference geometry branches
-            # (round 5) but not every scheme/flag combination
-            # (pallas_combustion._check_supported); an unsupported config
-            # must fall back to XLA under auto selection and fail loudly
-            # only on an explicit --fused
-            from ..ops import pallas_combustion as pcmb
-            if not pcmb.supported(p):
-                if not auto:
-                    pcmb._check_supported(p)   # raise the loud message
-                fused = False
-        if fused and nx * ny > 60000:
-            # y-striped kernel (measured 840x160 konv: 563.6 MLUPS at
-            # tile=40/halo=16/nsub=4 vs 416 XLA; tile=80 exceeds VMEM)
-            from ..ops import pallas_combustion as pcmb
-            if not pcmb.supported(p, striped=True):
-                # x-periodic topology + unaligned nx: the stripe DMA pad
-                # would corrupt the wrap — fall back (loud on --fused)
-                if not auto:
-                    pcmb._check_supported(p, striped=True)
-                tile = 0
-            else:
-                try:
-                    tile = pcmb.pick_stripe_tile(ny, nx, halo=16)
-                except ValueError:
-                    if not auto:     # user explicitly asked for --fused
-                        raise
-                    tile = 0     # no admissible stripe height: XLA fallback
-            if tile:
-                runner = partial(pcmb.run_fused, stripe_tile=tile, halo=16)
-            else:
-                runner = cb.run
-        elif fused:
-            from ..ops import pallas_combustion as pcmb
-            runner = pcmb.run_fused
-        else:
-            runner = cb.run
-        st = runner(st, p, bench_ini_iter, konv=False)
-        np.asarray(st.f[0, 0, :8])                # sync after warmup
+        st = jax.block_until_ready(cb.run(st, p, bench_ini_iter, konv=False))
         n = bench_max_iter - bench_ini_iter
-        t0 = time.time()
-        st = runner(st, p, n, konv=False)
-        np.asarray(st.f[0, 0, :8])
-        dt_s = time.time() - t0
+        t0 = time.perf_counter()
+        st = jax.block_until_ready(cb.run(st, p, n, konv=False))
+        dt_s = time.perf_counter() - t0
         print(f"MLUPS: {nx * ny * n / dt_s / 1e6:.1f}")
         return st
 

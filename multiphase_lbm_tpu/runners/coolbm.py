@@ -16,6 +16,7 @@ import sys
 
 import jax.numpy as jnp
 
+from ..utils.runtime import configure_compile_cache, enable_x64_for
 from . import apps
 
 PROBLEMS = {
@@ -52,11 +53,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None,
                     help="override the step count from the config")
     ap.add_argument("--f32", action="store_true",
-                    help="run in float32 (TPU production dtype)")
-    ap.add_argument("--fused", action="store_true",
-                    help="use the fused Pallas kernel path "
-                         "(rayleighTaylor2D, Young_Laplace2D, "
-                         "RayleighTaylor2D_sc, combustion)")
+                    help="run in float32 (default: float64, as the "
+                         "reference computes)")
     ap.add_argument("--quirk-free", action="store_true",
                     help="PulsatileBloodFlow2D: physics mode "
                          "(momentum_quirk=False — true first moment, "
@@ -98,6 +96,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dtype = jnp.float32 if args.f32 else jnp.float64
+    configure_compile_cache()
+    enable_x64_for(dtype)
 
     if args.problem == "PulsatileBloodFlow2D":
         apps.run_pulsatile(args.outdir, N=args.N, dtype=dtype,
@@ -112,15 +112,10 @@ def main(argv=None):
                             restart=args.restart,
                             benchmark=args.bench,
                             topology=args.topology,
-                            u_lid=args.u_lid, dpdx=args.dpdx,
-                            fused=args.fused or None)   # None = auto by shape
+                            u_lid=args.u_lid, dpdx=args.dpdx)
         return 0
 
     fn, needs_cfg = PROBLEMS[args.problem]
-    extra = {}
-    if args.fused and args.problem in ("rayleighTaylor2D", "Young_Laplace2D",
-                                       "RayleighTaylor2D_sc"):
-        extra["fused"] = True
     cfg = args.config
     if cfg is None:
         import os
@@ -144,7 +139,7 @@ def main(argv=None):
             cfg = cand2
         else:
             ap.error(f"--config required for {args.problem}")
-    fn(cfg, args.outdir, dtype=dtype, max_steps=args.steps, **extra)
+    fn(cfg, args.outdir, dtype=dtype, max_steps=args.steps)
     return 0
 
 

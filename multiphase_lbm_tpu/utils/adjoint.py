@@ -2,8 +2,9 @@
 
 Differentiating a ``lax.scan`` time loop (validation/calibration.py,
 tests/test_differentiability.py) makes XLA save EVERY intermediate lattice
-state for the backward pass — O(n_steps · state_bytes) HBM, which on a v5e
-(16 GB) caps a 2048² D2Q9 f32 adjoint at ~100 steps.  :func:`scan_remat`
+state for the backward pass — O(n_steps · state_bytes) of device memory:
+a 2048² D2Q9 f32 state is 151 MB, so an 80 GB card holds about 500 saved
+steps (computed from shapes).  :func:`scan_remat`
 nests two scans and wraps the inner one in ``jax.checkpoint``: only the
 O(√n) outer-block boundary states are saved, and each inner block is
 recomputed during the backward sweep (the classic √n checkpointing
@@ -12,11 +13,10 @@ recipe "use jax.checkpoint to trade FLOPs for memory").
 
 The C++ reference has no adjoint capability at all (imperative in-place
 loops, e.g. ``Phase field model/apps/rayleighTaylor2D.h:980``); this is
-native to the functional TPU design.  Works for any pytree state and any
-pure ``step`` function — the XLA model paths.  The fused Pallas kernels
-define no VJP; differentiate the XLA oracle paths (which is also what the
-precision argument wants: adjoint gradients are checked against finite
-differences, CLAUDE.md's HIGHEST-einsum rule).
+native to the functional JAX design.  Works for any pytree state and any
+pure ``step`` function — the XLA model paths.  Adjoint gradients are
+checked against finite differences, so the contractions stay at HIGHEST
+precision (``core/precision.py``).
 """
 from __future__ import annotations
 

@@ -68,6 +68,9 @@ def run(n=64, steps=40000, dtype=None, gx=1e-6):
 
 
 def main():
+    from ..utils.runtime import configure_compile_cache
+
+    configure_compile_cache()
     steps = int(sys.argv[1]) if len(sys.argv) > 1 else 40000
     prof, ana, err = run(steps=steps)
     print(f"max relative deviation from analytic profile: {err:.3f}")

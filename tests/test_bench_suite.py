@@ -1,51 +1,50 @@
-"""CPU smoke gate for the benchmark suite harness (runners/bench_suite).
+"""CPU gates for the benchmark suite harness (runners/bench_suite).
 
-Runs one cheap workload in --quick (interpreter, tiny shape) mode: checks
-the registry → build → timed-protocol plumbing end to end, not the
-numbers (those are measured serially on the chip — BASELINE.md).
+Each workload builds at its quick size and takes one XLA step: this checks
+the registry → build → step plumbing, not the numbers, which are measured
+on the GPU only (the suite refuses to time anything on the CPU).
 """
-import json
+import jax
+import numpy as np
+import pytest
 
 from multiphase_lbm_tpu.runners import bench_suite
 
 
-def test_quick_workload_runs(capsys):
-    rc = bench_suite.main(["sc", "--quick"])
-    assert rc == 0
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec["workload"] == "sc" and rec["mlups"] > 0
-    assert "error" not in rec
+@pytest.mark.parametrize("name", sorted(bench_suite.WORKLOADS))
+def test_quick_workload_runs(name):
+    sim = bench_suite.WORKLOADS[name].build(quick=True)
+    out = sim.run(sim.state, 1)
+    before = jax.tree_util.tree_leaves(sim.state)
+    after = jax.tree_util.tree_leaves(out)
+    assert [a.shape for a in after] == [a.shape for a in before]
+    assert [a.dtype for a in after] == [a.dtype for a in before]
+    assert after[0].dtype == np.float32
+    assert np.isfinite(np.asarray(after[0])).all()
 
 
 def test_registry_builds_quick_configs():
-    # every quick-capable workload builds without running
-    built = [name for name, (build, _) in bench_suite.WORKLOADS.items()
-             if build(True, True) is not None]
-    assert set(built) == {"sc", "hcz", "hcz3d", "fakhari", "scrt"}
+    assert set(bench_suite.WORKLOADS) == {
+        "sc", "hcz", "hcz2048", "hcz3d", "fakhari", "scrt", "combustion",
+        "combustion840", "pulsatile"}
+    for name, wl in bench_suite.WORKLOADS.items():
+        sim = wl.build(quick=True)
+        lattice = jax.tree_util.tree_leaves(sim.state)[0]
+        assert lattice.shape[1:] == wl.quick_shape, name
+        assert wl.steps > 0
 
 
-def test_tuned_table_overrides_workload_defaults(tmp_path, monkeypatch):
-    """The suite consults the committed autotune winner table; only knobs
-    the workload exposes are taken, and a missing/foreign entry leaves the
-    BASELINE.md defaults untouched."""
-    from multiphase_lbm_tpu.ops import autotune
+def test_suite_refuses_without_gpu(capsys):
+    with pytest.raises(SystemExit, match="no GPU"):
+        bench_suite.main(["sc"])
+    assert capsys.readouterr().out == ""
 
-    path = str(tmp_path / "tuned.json")
-    autotune.save_table(
-        path, "pallas_hcz", (9, 64, 128), "float32",
-        [{"config": {"tile": 16, "nsub": 3, "halo": 8, "exotic_knob": 1},
-          "mlups": 50.0, "ms_per_step": 1.0, "spread": 0.0}])
-    monkeypatch.setenv("MLBM_TUNED_PATH", path)
 
-    kw = bench_suite._tuned_kw("pallas_hcz", (9, 64, 128), "float32",
-                               dict(tile=32, nsub=5, halo=16))
-    assert kw == dict(tile=16, nsub=3, halo=8)   # exotic_knob not injected
+def test_check_finite_rejects_nan():
+    import jax.numpy as jnp
 
-    kw = bench_suite._tuned_kw("pallas_hcz", (9, 64, 256), "float32",
-                               dict(tile=32, nsub=5, halo=16))
-    assert kw == dict(tile=32, nsub=5, halo=16)  # shape miss -> defaults
-
-    monkeypatch.setenv("MLBM_TUNED_PATH", str(tmp_path / "absent.json"))
-    kw = bench_suite._tuned_kw("pallas_hcz", (9, 64, 128), "float32",
-                               dict(tile=32, nsub=5, halo=16))
-    assert kw == dict(tile=32, nsub=5, halo=16)  # missing table -> defaults
+    sim = bench_suite.WORKLOADS["sc"].build(quick=True)
+    bench_suite.check_finite(sim, sim.state, "sc")
+    with pytest.raises(FloatingPointError, match="sc: non-finite"):
+        bench_suite.check_finite(sim, sim.state.at[0, 0, 0].set(jnp.nan),
+                                 "sc")

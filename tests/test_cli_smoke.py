@@ -1,6 +1,6 @@
 """CLI smoke tests: every problem wired in runners/coolbm.py runs
 end-to-end (config parse → driver → model step → VTK/.dat output) at a
-tiny lattice for 2 steps.
+tiny lattice for 2 steps, in float64 (the default) and with ``--f32``.
 
 Catches wiring regressions in the 500-line runners/apps.py surface that
 the model-level tests can't see (argument plumbing, config key reads,
@@ -52,19 +52,56 @@ def test_pulsatile_cli_runs_end_to_end(tmp_path):
     assert any(name.startswith("sol_") for name in produced), produced
 
 
-@pytest.mark.parametrize("problem", sorted(CASES))
-def test_problem_runs_end_to_end(problem, tmp_path):
+def _run_problem(problem, tmp_path, *extra):
     config_name, expected = CASES[problem]
     cfg = tmp_path / "config.txt"
     _tiny_config(os.path.join(CONFIG_DIR, config_name), cfg)
     outdir = tmp_path / "out"
     rc = coolbm.main([problem, "--config", str(cfg),
-                      "--outdir", str(outdir), "--steps", "2"])
+                      "--outdir", str(outdir), "--steps", "2", *extra])
     assert rc == 0
     produced = os.listdir(outdir)
     for frag in expected:
         assert any(frag in name for name in produced), (
             f"{problem}: no output matching {frag!r} in {produced}")
+
+
+@pytest.mark.parametrize("problem", sorted(CASES))
+def test_problem_runs_end_to_end(problem, tmp_path):
+    _run_problem(problem, tmp_path)
+
+
+@pytest.mark.parametrize("problem", sorted(CASES))
+def test_problem_runs_end_to_end_f32(problem, tmp_path):
+    _run_problem(problem, tmp_path, "--f32")
+
+
+def test_default_dtype_is_really_float64(tmp_path):
+    """Without ``--f32`` the CLI computes in float64: it turns on
+    ``jax_enable_x64`` itself (a fresh process, outside this suite's
+    conftest, which enables x64 for every test)."""
+    import subprocess
+    import sys
+
+    cfg = tmp_path / "config.txt"
+    _tiny_config(os.path.join(CONFIG_DIR, "sc_Laplace2D.txt"), cfg)
+    code = f"""
+import jax
+from multiphase_lbm_tpu.runners import coolbm
+seen = []
+run, needs_cfg = coolbm.PROBLEMS["laplace2D_sc"]
+coolbm.PROBLEMS["laplace2D_sc"] = (
+    lambda *a, **k: seen.append(run(*a, **k).dtype), needs_cfg)
+coolbm.main(["laplace2D_sc", "--config", {str(cfg)!r},
+             "--outdir", {str(tmp_path / "out")!r}, "--steps", "2"])
+print(seen[0], jax.config.jax_enable_x64)
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                       env={**os.environ, "JAX_PLATFORMS": "cpu"},
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-2:] == ["float64", "True"]
 
 
 def test_pulsatile_dump_cadence(tmp_path, monkeypatch):

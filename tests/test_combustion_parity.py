@@ -1,5 +1,5 @@
 """CI gate: field parity of the combustion model against an instrumented
-run of the reference C++ (VERDICT r2 item 3).
+run of the reference C++.
 
 Capture protocol (BASELINE.md): copy ``CooLBM_MRT_combustion.cpp`` to a
 scratch dir; patch ONLY N_X/N_Y→128/48 (globals AND main's locals — the
@@ -26,55 +26,9 @@ Gate: every VTK field at steps 100..500 matches at float-output
 precision (the reference prints %g ≈ 6 significant digits) over all
 bulk cells, and Temperature additionally over the solid obstacle.
 """
-import pathlib
-
-import jax
-import numpy as np
-
-from multiphase_lbm_tpu.models import combustion as cb
-
-DATA = pathlib.Path(__file__).parent.parent / "multiphase_lbm_tpu" / \
-    "validation" / "data" / "combustion_reference.npz"
-
-# field → (absolute tolerance at the reference's float-print precision,
-#          compare over obstacle cells too)
-FIELDS = {
-    "Density": (1e-5, False),
-    "velocity_X": (1e-6, False),
-    "velocity_Y": (1e-6, False),
-    "Temperature": (1e-5, True),
-    "mass_fraction_O2": (2e-6, False),
-    "mass_fraction_CO2": (2e-6, False),
-}
+from multiphase_lbm_tpu.validation import captures
 
 
 def test_combustion_matches_cpp_reference_500_steps():
-    cap = np.load(DATA)
-    flag = cap["flag"]
-    bulk = flag == 0
-    obst = flag == 2
-
-    p = cb.CombustionParams(nx=128, ny=48)
-    flags, _ = cb.build_geometry(p)
-    st = cb.initialize(p, flags=flags)
-    step, _ = cb.make_step(p, konv=True, first_step=True)
-
-    @jax.jit
-    def chunk100(s):
-        return jax.lax.fori_loop(0, 100, lambda _, t: step(t), s)
-
-    for tgt in (100, 200, 300, 400, 500):
-        st = chunk100(st)
-        rho, u = cb.macro_flow(st.f)
-        ours = {
-            "Density": np.asarray(rho),
-            "velocity_X": np.asarray(u[0]),
-            "velocity_Y": np.asarray(u[1]),
-            "Temperature": np.asarray(cb.macro_scalar(st.gT)),
-            "mass_fraction_O2": np.asarray(cb.macro_scalar(st.gO2)),
-            "mass_fraction_CO2": np.asarray(cb.macro_scalar(st.gCO2)),
-        }
-        for name, (tol, with_obst) in FIELDS.items():
-            sel = bulk | obst if with_obst else bulk
-            d = np.abs(ours[name] - cap[f"{name}_{tgt}"])[sel].max()
-            assert d < tol, (name, tgt, d)
+    for label, err, tol in captures.combustion_parity():
+        assert err < tol, (label, err, tol)

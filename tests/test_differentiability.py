@@ -29,7 +29,7 @@ def test_gradient_wrt_gravity_through_rt_solver():
         f, _ = jax.lax.scan(body, f0, None, length=30)
         rho = rt.density(f)
         # HIGHEST-precision einsum: this gradient is checked against
-        # finite differences, so bf16 MXU contraction noise would bite
+        # finite differences, so reduced-precision (TF32) products would bite
         u = einsum("kd,kyx->dyx", c, f) / jnp.maximum(rho, 1e-14)[None]
         return 0.5 * jnp.sum(jnp.where(fluid[None], u, 0.0) ** 2)
 

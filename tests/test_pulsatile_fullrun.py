@@ -5,9 +5,9 @@ Consumes the complete 103-dump golden artifact of the reference run
 compliant vessel/` — SURVEY §2.1 row 16) at reduced metric cadence and
 gates the regime-split comparison of validation/pulsatile_fullrun.py:
 wall-position envelope, inlet pressure-wave amplitude/phase, and
-fluid-masked field statistics.  CPU f64; the f32-on-TPU run of the same
-comparison is the verify-skill recipe
-(`python -m multiphase_lbm_tpu.validation.pulsatile_fullrun f32`).
+fluid-masked field statistics.  CPU f64; the f32 run of the same
+comparison is ``python -m multiphase_lbm_tpu.validation.pulsatile_fullrun
+f32``.
 
 Reference: PulsatileBloodFlow2D.h:680-716 (dump schema), :764-791
 (step order).  This is the heaviest test in the suite (~2.5 min: the
@@ -22,31 +22,10 @@ from multiphase_lbm_tpu.validation import pulsatile_fullrun as fr
 @pytest.mark.slow
 def test_full_archived_run_statistics():
     cadence = 3
-    sim, _ = fr.simulate_metrics(dtype="f64", cadence=cadence)
+    sim = fr.simulate_metrics(dtype="f64", cadence=cadence)
     gold = fr.golden_metrics(cadence=cadence)
     table = fr.compare(sim, gold)
     for k, tol in fr.GATES.items():
         assert table[k] <= tol, (k, table[k], tol)
     assert abs(table["wave_phase_lag_dumps"]) <= 1, table
 
-
-@pytest.mark.slow
-def test_fused_fullrun_order_dep_envelope():
-    """The fused kernel's one documented deviation — order-dependent
-    reseed steps filled densely instead of sequentially
-    (ops/pallas_pulsatile_full.py:44-50) — is bounded over the FULL
-    2765-step reference run: 6 such steps measured; the gate fails if a
-    kernel edit doubles the count.  Runs at FULL metric cadence (round 5:
-    the 103-dump golden parse costs only ~6 s) so the f32 statistical
-    gates AND the pressure-wave phase-lag gate both execute on the fused
-    path in CI — previously the phase gate existed only in the TPU
-    batch."""
-    sim, diag = fr.simulate_metrics(path="fused", cadence=1,
-                                    interpret=True)
-    assert diag["order_dep_steps"] <= fr.ORDER_DEP_STEPS_MAX, diag
-    assert diag["reseed_cells"] > 0          # the counter is alive
-    gold = fr.golden_metrics(cadence=1)
-    table = fr.compare(sim, gold)
-    for k, tol in fr.GATES_F32.items():
-        assert table[k] <= tol, (k, table[k], tol)
-    assert abs(table["wave_phase_lag_dumps"]) <= 1, table

@@ -1,29 +1,27 @@
-"""CI gates for the RTI literature regression (VERDICT r2 item 4).
+"""CI gates for the RTI literature regression.
 
 Two layers:
 
 1. ``test_rti2048_trajectory_matches_literature`` — replay the archived
-   TPU trajectory (``validation/data/rti2048_trajectory.npz``, captured
-   from the fused 2048×8200 run) through the exact notebook comparison
+   trajectory (``validation/data/rti2048_trajectory.npz``, captured from
+   a float32 2048×8200 run) through the exact notebook comparison
    (positions AND np.gradient+moving-average velocities) against the
    digitized He et al. 1999 curves.  Milliseconds; gates the comparison
    logic and the reference curves.
 2. ``test_hcz_short_run_matches_golden`` — a 40-step N=64 HCZ
    Rayleigh-Taylor run vs a stored f64 snapshot, so ANY numerical change
    in models/hcz.py fails CI (the honest N=256-to-t=1 literature run is
-   ~97 min on this CPU and lives in the verify skill / TPU recipe
-   instead).
+   ~97 min on a CPU core and runs on the GPU instead:
+   ``python -m multiphase_lbm_tpu.validation.rti_regression``).
 
 Reference: ``Phase field model/Untitled.py`` cells 0-4 (the notebook),
 ``Phase field model/apps/rayleighTaylor2D.h:862-988`` (driver).
 """
 import pathlib
 
-import jax.numpy as jnp
 import numpy as np
 
-from multiphase_lbm_tpu.io.config import lb_parameters
-from multiphase_lbm_tpu.models import hcz
+from multiphase_lbm_tpu.validation import captures
 from multiphase_lbm_tpu.validation import rti_regression as rr
 
 DATA = pathlib.Path(__file__).parent.parent / "multiphase_lbm_tpu" / \
@@ -38,15 +36,5 @@ def test_rti2048_trajectory_matches_literature():
 
 
 def test_hcz_short_run_matches_golden():
-    d = np.load(DATA / "hcz_golden_n64.npz")
-    N, ny, steps = (int(v) for v in d["meta"])
-    nu, omega, dx, dt = lb_parameters(0.04, N, 3000.0)
-    p = hcz.HCZParams(omega=omega, gravity=-0.04 * 0.04 / N, kappa=0.01)
-    st = hcz.init_rayleigh_taylor(N, ny, p, dtype=jnp.float64)
-    fluid = hcz.geometry_channel(N, ny)
-    st = hcz.apply_geometry(st, fluid)
-    st = hcz.run(st, fluid, p, steps)
-    np.testing.assert_allclose(np.asarray(st[0]), d["f"], rtol=1e-12,
-                               atol=1e-14)
-    np.testing.assert_allclose(np.asarray(st[1]), d["g"], rtol=1e-12,
-                               atol=1e-14)
+    for name, err, tol in captures.hcz_golden():
+        assert err <= tol, (name, err, tol)

@@ -74,23 +74,7 @@ def test_sc_rayleigh_taylor_matches_cpp_reference():
     density dump at step 250 — capture protocol in BASELINE.md): the
     density profiles along the two interface probe columns must match to
     the reference's float output precision."""
-    from multiphase_lbm_tpu.io.config import lb_parameters
-    from pathlib import Path
+    from multiphase_lbm_tpu.validation import captures
 
-    data = np.load(Path(__file__).resolve().parents[1] /
-                   "multiphase_lbm_tpu/validation/data/scrt_reference.npz")
-    nu, omega, dx, dt = lb_parameters(0.04, 128, 30.72)
-    p = rt.SCRTParams(omega=omega, rhol=1.2, rhog=0.4, g=-5.0,
-                      gravity=-1.25e-5)
-    nx, ny = 128, 4 * 128 + 2         # reference dim {N, 4N+2}
-    f = rt.init_interface(nx, ny, p, dtype=jnp.float64)
-    fluid = rt.geometry_channel(nx, ny)
-    f = f * fluid[None].astype(f.dtype)
-    f = rt.run(f, fluid, p, 250)
-    rho = np.asarray(rt.density(f))
-    interior = np.ones(ny, bool)
-    interior[0] = interior[-1] = False
-    for name, col in (("col0", 0), ("colmid", nx // 2)):
-        ref = np.asarray(data[f"rho_{name}_250"], dtype=np.float64)
-        np.testing.assert_allclose(rho[interior, col], ref[interior],
-                                   atol=5e-5, err_msg=name)
+    for name, err, tol in captures.scrt_parity():
+        assert err <= tol, (name, err, tol)
